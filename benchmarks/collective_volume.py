@@ -1,11 +1,12 @@
-"""Measure per-step collective traffic of every mesh program (VERDICT r3 #2).
+"""Measure per-step collective traffic of every mesh program.
 
 Compiles the sharded pipeline's device programs on an 8-virtual-CPU-device
 mesh and inventories the XLA collectives in the optimized HLO — op kind,
-tensor shape, bytes moved per execution — so BASELINE.md can state exactly
-what rides ICI (collectives among one process's devices) vs DCN (the same
-collectives when the mesh axis spans processes; XLA emits the same ops,
-the fabric underneath changes).
+tensor shape, bytes moved per execution — to state exactly what crosses
+NVLink (collectives among one host's cards) vs the network (the same
+collectives when the mesh axis spans hosts; XLA emits the same ops, the
+fabric underneath changes).  These are byte counts from shapes, not
+timings.
 
 Ops inside a `while` body (the PCG loop) execute once per iteration; the
 report marks those with the loop's trip source so the per-step totals can

@@ -1,16 +1,13 @@
 """Scan-match kernel micro-benchmark: gather-strategy shootout.
 
-Round-2 established the candidate-scoring kernel is gather-row-count bound.
-This benchmark measures, chained RTT-free on the real chip (the bench.py
-methodology), the per-match device time of:
+The candidate-scoring program's cost is set by how many table rows it
+gathers.  This benchmark measures, chained inside one jit on the device
+(the bench.py methodology), the per-match device time of:
 
   * local       — the current XLA fast path (2x2 packed-patch row-gather,
                   A*B rows)
   * grouped-G   — matching.gather_opt: one 3x3 patch per G-angle group
                   ((A/G)*B rows, 9-way select)
-  * (rounds 1-3 also measured the retired Pallas kernels here; the final
-    in-kernel-gather attempt lost 5x and the file was deleted — the
-    measured history lives in kernel_microbench.json and BASELINE.md)
 
 Usage: python benchmarks/kernel_microbench.py [--quick]
 Appends to benchmarks/kernel_microbench.json.

@@ -1,7 +1,6 @@
 """Long-session robustness benchmark: a 10k-scan multi-lap office session.
 
-VERDICT r4 #7: the unbounded-map-growth axis (SURVEY.md §5.7) at a scale no
-test touches (largest: 2000 scans).  A robot laps the office-grid world for
+The unbounded-map-growth axis (SURVEY.md §5.7) at a scale no test touches (largest: 2000 scans).  A robot laps the office-grid world for
 ``--scans`` raw scans (~25 laps at the default), so keyframes, loop
 closures, and constraints keep accumulating the whole run.  Records:
 

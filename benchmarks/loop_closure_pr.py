@@ -1,8 +1,8 @@
 """Loop-closure candidate recall / confirmation precision benchmark.
 
-Round-2 VERDICT weak #3: the descriptor search accepted 4 of 784 candidates
-with no ground-truth-revisit metric to say whether the descriptors, the 0.95
-similarity constant, or the EWMA gate was responsible.  This benchmark labels
+Without a ground-truth revisit metric nothing says whether the descriptors,
+the similarity constant, or the EWMA gate decides which candidates a
+loop-closure pass accepts.  This benchmark labels
 TRUE revisits from the simulator's ground truth and scores each candidate
 source + gate setting on:
 
@@ -69,7 +69,7 @@ def _rel_transform(pa, pb):
 
 def transform_error_rows(mapper, truth_used: np.ndarray,
                          tol_m: float = 0.3, tol_rad: float = 0.05):
-    """Per accepted-closure transform error vs truth (VERDICT r4 #2).
+    """Per accepted-closure transform error vs truth.
 
     An accepted closure is transform-TRUE iff the switchable constraint's
     relative transform matches the TRUTH relative transform of its
@@ -101,7 +101,7 @@ def transform_error_rows(mapper, truth_used: np.ndarray,
 def attribute_misses(mapper, truth_used: np.ndarray, revisits, queries,
                      cands, cand_query_xy):
     """Per-cause attribution of revisit queries whose proposal list never
-    contained a true revisit (VERDICT r4 #5: the simlab candidate-recall
+    contained a true revisit (the simlab candidate-recall
     ceiling).  Causes, checked in order per missed query:
 
       no_points     every true revisit is a point-less scan (dropped,
@@ -416,7 +416,7 @@ def main(argv=None) -> int:
                 run_simlab(gate, "radius", 0.95, n_simlab))
 
     if args.scenario == "round4":
-        # VERDICT r3 #3-#6: region-3 confirmation windows, Newton-polished
+        # Region-3 confirmation windows, Newton-polished
         # overlapping-grid global matcher, the "both" candidate union, and
         # the drift case — swept against the round-3 shipped recipe.
         R3 = {"loop_closure_region_size": 3}
@@ -566,7 +566,7 @@ def main(argv=None) -> int:
                 recipe=f"wide+best+sep{sep}+k{k}")
 
     if args.scenario == "round5":
-        # VERDICT r4 #2: the round-4 office operating points re-scored on
+        # The round-4 office operating points re-scored on
         # the transform-error criterion (tf_precision / tf_closure_recall
         # now emitted by score_session for every row).
         N8 = {"refine_iterations": 8}
@@ -592,7 +592,7 @@ def main(argv=None) -> int:
             recipe="region3+newton")
 
     if args.scenario == "round5simlab":
-        # VERDICT r4 #5: lift the simlab candidate-recall ceiling.  The
+        # Lift the simlab candidate-recall ceiling.  The
         # baseline row's miss_causes attribution picks the lever; the
         # sweep then measures the candidate fixes (larger squared radius,
         # higher candidate cap, descriptor union).
@@ -608,7 +608,7 @@ def main(argv=None) -> int:
         # The attribution run proved every baseline miss is barycenter
         # geometry (reverse-direction revisits); the dual-position search
         # with a per-arm budget closes it.  region 3 = accuracy-optimal,
-        # region 5 = the closure-recall recipe (VERDICT r4 #5 bar).
+        # region 5 = the closure-recall recipe.
         for rname, extra in (
                 ("r4-baseline", {}),
                 ("bothpos-region3", {"loop_search_positions": "both"}),
@@ -636,7 +636,7 @@ def main(argv=None) -> int:
             rows.append(row)
             print(json.dumps(row), flush=True)
 
-        n_drift = 300  # the round-4 quick drift bag (lc_pr round4e rows)
+        n_drift = 300  # the round-4 quick drift bag (round4e scenario)
         for rname, extra in (("wide+best+sep1.5+k8", {}),
                              ("wide+best+sep1.5+k8+prune", prune)):
             tag("office_drift", "both", 0.85, 0.80,
@@ -644,7 +644,7 @@ def main(argv=None) -> int:
                            recipe={**rb, **extra}, gm=N8), recipe=rname)
 
     if args.scenario == "round5prune":
-        # VERDICT r4 #1: the descriptor-mode wall.  A/B the far-row
+        # The descriptor-mode wall.  A/B the far-row
         # pruning levers on the config-6-shaped office descriptor recipe;
         # the full-size result lands in run_benchmarks config 6.
         N8 = {"refine_iterations": 8}

@@ -2,8 +2,8 @@
 
 Runs the config-3 office recipe twice on the SAME bag — once on a single
 device, once through ``Mapper(mesh=...)`` over the 8-virtual-device CPU mesh
-(this environment has one physical TPU chip; the mesh validates the sharded
-pipeline the way the driver's dryrun does) — and reports closures + ATE for
+(the mesh validates the sharded pipeline on virtual devices; on real
+cards use ``chip_smoke.py --multi-gpu``) — and reports closures + ATE for
 both.  The multichip claim this row backs: the FULL product pipeline
 (sharded rolling match, loop-closure search + sharded vmapped confirmation +
 gate, constraint-sharded solve, sharded occupancy export) runs to completion

@@ -4,7 +4,7 @@
 // reference runs (window NDT build + exhaustive 3-DoF candidate search,
 // cf. /root/reference/src/scan_matcher_ndt.cpp and src/ndt_model.cpp) so that
 // bench.py can measure an honest C++ single-core candidates/sec figure on the
-// benchmark host and report the TPU kernel's speedup against it.
+// benchmark host and compare the JAX matcher against it.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libndt2d_native.so \
 //            baseline_matcher.cpp graph_codec.cpp

@@ -92,23 +92,28 @@ def _matcher_config(args, ns: str):
     return ScanMatcherConfig(**kw)
 
 
-# Measured loop-closure recipes (BASELINE.md round 5 / lc_pr_results.json),
-# exposed as one-flag presets.  Each preset sets only the QUALITY levers the
-# sweeps tuned; session scaffolding (keyframe spacing, grid sizing, search
-# radius, pipelining depth) stays bag-dependent and at its defaults unless
-# set explicitly.  Any explicit flag overrides its preset value.
-# "global_refine_iterations" / "robust_loss" apply to the nested
-# global-matcher / solver configs.
+# Loop-closure recipes, exposed as one-flag presets.  Each preset sets only
+# the QUALITY levers (gate, confirmation region, candidate sources, pruning,
+# robust loss, Newton polish); session scaffolding (keyframe spacing, grid
+# sizing, search radius, pipelining depth) stays bag-dependent and at its
+# defaults unless set explicitly.  Any explicit flag overrides its preset
+# value.  "global_refine_iterations" / "robust_loss" apply to the nested
+# global-matcher / solver configs.  Each recipe's correctness bar on the
+# current device lives with the cell that runs it (chip_smoke.py runs
+# "simlab"); benchmarks/loop_closure_pr.py measures closure recall and
+# precision against ground truth.
 _RECIPES = {
-    # Radius search, structured indoor loops: office closure recall 0.90 at
-    # transform-precision 0.993, aligned final ATE 0.080; the oracle-arm
-    # recipe that beats the reference pipeline 13-42% on every config.
+    # Radius search over structured indoor loops: a loosened gate (0.85 x
+    # typical score) with 3-scan confirmation regions, the dual-position
+    # radius search, and a redescending loss that switches off a rare wrong
+    # closure in the solve.
     "office": dict(
         loop_closure_gate_scale=0.85, loop_closure_region_size=3,
         loop_search_positions="both", robust_loss="geman_mcclure",
         global_refine_iterations=8),
-    # Appearance (descriptor) search with the round-5 far-alias pruning:
-    # config-6 wall 142 -> 16.9 s at aligned ATE 0.102.
+    # Appearance (descriptor) search with far-alias pruning: best-only
+    # acceptance, a 1.5 m separation gate, per-pass spatial dedup, a
+    # negative cache of clearly rejected pairs and a cap of 16 far rows.
     "office-descriptor": dict(
         loop_search="descriptor", loop_closure_gate_scale=0.85,
         loop_closure_region_size=3, loop_closure_accept="best",
@@ -116,16 +121,14 @@ _RECIPES = {
         loop_closure_reject_cache_margin=0.10, loop_closure_max_far_rows=16,
         robust_loss="geman_mcclure", global_refine_iterations=8),
     # Open/cluttered geometry surveyed densely (CARMEN-style): the parity
-    # gate holds precision 0.98+ with the denser region-3 windows; the
-    # dual-position search closes the reverse-revisit recall gap
-    # (candidate recall 0.83 -> 1.00, aligned ATE 0.065).
+    # gate (1.0) with the denser region-3 windows; the dual-position search
+    # catches reverse-direction revisits the barycenter convention misses.
     "simlab": dict(
         loop_closure_gate_scale=1.0, loop_closure_region_size=3,
         loop_search_positions="both", robust_loss="geman_mcclure",
         global_refine_iterations=8),
     # High odometry drift (radius search can't reach the revisits): union
-    # candidates + best-accept + separation gate + pruning recover
-    # 4.6 m odometry error to 0.095 m aligned in 24 s.
+    # candidates + best-accept + separation gate + far-row pruning.
     "drift": dict(
         loop_search="both", loop_closure_accept="best",
         loop_closure_max_separation=1.5, global_search_limit=8,
@@ -301,6 +304,10 @@ def _run_session(args, localize: bool) -> int:
         stats["viz_out"] = args.viz_out
     if control:
         control.close()
+    import jax
+    dev = jax.devices()[0]
+    stats["device"] = {"platform": dev.platform, "kind": dev.device_kind,
+                       "count": jax.device_count()}
     print(json.dumps(stats))
     return 0
 
@@ -495,10 +502,9 @@ def _add_loop_closure_args(p: argparse.ArgumentParser) -> None:
                    help="cosine cutoff for descriptor loop-closure "
                         "candidates (loop-search descriptor/both)")
     p.add_argument("--recipe", choices=sorted(_RECIPES), default=None,
-                   help="apply a measured loop-closure recipe preset "
-                        "(BASELINE.md round 5): office = radius search "
-                        "on structured loops (recall 0.90 at transform-"
-                        "precision 0.993); office-descriptor = "
+                   help="apply a loop-closure recipe preset: office = "
+                        "radius search on structured loops (loosened "
+                        "gate, region-3 windows); office-descriptor = "
                         "appearance search with far-alias pruning; "
                         "simlab = dense surveys (parity gate, dual-"
                         "position search); drift = high odometry drift "
@@ -754,8 +760,7 @@ def _build_parser() -> argparse.ArgumentParser:
     p.add_argument("--windowed", action="store_true",
                    help="windowed protocol: immediate per-scan acks, poses "
                         "stream back asynchronously (pairs with a server "
-                        "run with --max-inflight; ~10x wall throughput "
-                        "through a high-RTT link)")
+                        "run with --max-inflight)")
     p.set_defaults(fn=cmd_feed)
 
     p = sub.add_parser("viz", help="render a saved map to PNG")
@@ -770,6 +775,10 @@ def _build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+# Subcommands that compile device programs and so use the persistent cache.
+_COMPUTE_COMMANDS = frozenset({"run", "localize", "serve", "merge-maps"})
+
+
 def _parse_for_test(argv):
     """Parse argv through the real parser without executing (tests)."""
     return _build_parser().parse_args(argv)
@@ -780,12 +789,16 @@ def main(argv=None) -> int:
     args = _build_parser().parse_args(argv)
     platform = os.environ.get("NDT2D_PLATFORM")
     if platform:
-        # The environment may pre-pin JAX to a backend before main() runs;
-        # jax.config is the only override that still works at this point.
+        # jax.config still takes effect after jax was imported (the
+        # JAX_PLATFORMS variable does not); no backend starts here.
         import jax
         jax.config.update("jax_platforms", platform)
-    from ndt_2d_tpu.utils.jax_cache import enable_compilation_cache
-    enable_compilation_cache()
+    if args.cmd in _COMPUTE_COMMANDS:
+        # Client commands (feed, save-map, info, ...) leave JAX untouched:
+        # a second process that opened the card would reserve most of its
+        # memory beside a running `serve`.
+        from ndt_2d_tpu.utils.jax_cache import enable_compilation_cache
+        enable_compilation_cache()
     return args.fn(args)
 
 

@@ -2,7 +2,7 @@
 
 The reference stores one ``Scan`` per keyframe: id, corrected pose, robot-frame
 point cloud, and a lazily cached barycenter (include/ndt_2d/scan.hpp:40-88,
-src/scan.cpp:72-91).  TPU-natively, all keyframes live in one padded
+src/scan.cpp:72-91).  Here all keyframes live in one padded
 structure-of-arrays pytree so every op batches over scans.
 """
 

@@ -1,11 +1,11 @@
-"""AMCL-style particle filter with KLD-adaptive resampling, TPU-native.
+"""AMCL-style particle filter with KLD-adaptive resampling, batched on device.
 
 The reference (src/particle_filter.cpp) loops per particle for the motion
 update and the measurement model and resamples one draw at a time, counting
 occupied (x, y, theta) histogram bins with a custom incremental KD-tree
 (include/ndt_2d/kd_tree.hpp) purely to evaluate the KLD bound.
 
-TPU redesign:
+Batched redesign:
 * motion update: one vectorized sample over all particles,
 * measurement: one batched scorePoints gather over all particles x beams
   against the global NDT (replaces the loop at particle_filter.cpp:81-88),
@@ -68,7 +68,7 @@ def update_statistics(particles, weights, mask):
     mean = jnp.asarray([mean_xy[0], mean_xy[1], mean_th])
 
     corr = jnp.einsum("m,mi,mj->ij", w, particles[:, :2], particles[:, :2],
-                      precision="highest")  # TPU bf16 default skews the cov
+                      precision="highest")  # TF32 would skew the cov
     cov_xy = corr - jnp.outer(mean_xy, mean_xy)
     d = shortest_angular_distance(particles[:, 2], mean_th)
     cov_th = jnp.sum(w * d * d)
@@ -308,7 +308,7 @@ class ParticleFilter:
         """Global-localization seeding: uniform over free space x uniform
         heading (AMCL's global_localization service; the reference has no
         equivalent — it requires a manual initialpose after map load,
-        README.md:50-52).  Cheap on TPU: the whole max_particles cloud is
+        README.md:50-52).  Cheap on device: the whole max_particles cloud is
         scored in one batched measurement.
 
         Args:

@@ -3,9 +3,9 @@
 Mirrors the reference ``Graph`` container (include/ndt_2d/graph.hpp:45-118):
 scans and constraints with nearest-keyframe radius search.  The reference
 rebuilds a nanoflann KD-tree from scratch on every query (src/graph.cpp:167-189);
-on TPU-scale graphs a brute-force masked distance computation is both simpler
-and faster, and is what we do (vectorized numpy on host; the sharded variant
-lives in ndt_2d_tpu.parallel).
+at this engine's graph sizes a brute-force masked distance computation is
+both simpler and faster, and is what we do (vectorized numpy on host; the
+sharded variant lives in ndt_2d_tpu.parallel).
 
 Storage is structure-of-arrays numpy with amortized capacity doubling (the
 analog of std::vector growth) and padded per-scan point buffers so device

@@ -4,7 +4,7 @@ Builds native/libndt2d_native.so on demand (g++ is in the image; pybind11 is
 not, so the boundary is a plain C ABI + numpy pointers).  Provides:
 
 * ``match_baseline``  — the single-core C++ matcher used as the benchmark
-  baseline (bench.py reports TPU speedup against it),
+  baseline and float64 oracle (bench.py, chip_smoke.py),
 * ``save_graph`` / ``load_graph`` — the fast binary map codec (the rosbag2
   replacement for large maps; npz remains the portable default).
 """
@@ -108,7 +108,7 @@ def reference_slam(points, mask, odom, range_max, mapper_cfg,
     scans (native/reference_pipeline.cpp): rolling-window matching, radius
     loop closure with the EWMA gate, Gauss-Newton optimization.
 
-    This is the trajectory ORACLE the TPU pipeline's ATE is compared
+    This is the trajectory ORACLE the JAX pipeline's ATE is compared
     against (benchmarks/reference_oracle.py) — the reference itself
     publishes no numbers, so this from-scratch reimplementation of its
     node loop (src/ndt_mapper.cpp:495-683) creates them.

@@ -4,14 +4,14 @@ No reference equivalent — the ROS package can load only one map per node.
 The merge reuses the framework's own machinery end-to-end:
 
 1. **Candidate pairs** — rotation-invariant descriptors for every keyframe
-   of both maps (parallel.loop_search.descriptors, an MXU matmul), cross
+   of both maps (parallel.loop_search.descriptors, one matmul), cross
    cosine-similarity [Na, Nb], top-K pairs above a similarity floor.
 2. **Confirmation** — per pair (i, j): build a 2-slot NDT window around
    map A's scan i (the loop-closure window shape, ndt_mapper.cpp:627-631)
    and register map B's scan j against it coarse-to-fine.  Unlike in-session
    loop closure, the relative HEADING between two sessions is arbitrary, so
    the coarse lattice spans the full +-pi angle range (a ~200k-candidate
-   exhaustive search — cheap on TPU, impossible in the reference's
+   exhaustive search — cheap on the GPU, impossible in the reference's
    per-candidate C++ loop).
 3. **Consistency** — every confirmed pair votes an SE(2) alignment
    T_ab = pose_j_in_a o inverse(pose_j_in_b); the largest mutually
@@ -125,7 +125,7 @@ def merge_maps(graph_a: Graph, graph_b: Graph, range_max: float,
                                  jnp.asarray(graph_b.point_mask),
                                  np.float32(range_max),
                                  config.descriptor_bins)
-    sims = np.asarray(da @ jnp.asarray(db).T)                 # [Na, Nb]
+    sims = np.asarray(loop_search.cross_similarity(da, db))   # [Na, Nb]
     order = np.argsort(sims, axis=None)[::-1][:top_k]
     pairs = [(int(p // nb), int(p % nb)) for p in order
              if sims.flat[p] >= min_similarity]

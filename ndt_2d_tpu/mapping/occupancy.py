@@ -2,7 +2,7 @@
 
 The reference re-raytraces every scan with per-beam sequential Bresenham on
 each map publish (OccupancyGrid::getMsg, src/occupancy_grid.cpp:47-152).
-TPU-natively all (scan, beam) rays march in parallel: sample each ray at
+Here all (scan, beam) rays march in parallel: sample each ray at
 sub-cell spacing, dedupe consecutive same-cell samples (a straight ray
 enters each convex cell once, so this visits the crossed-cell set like
 Bresenham does), and scatter hit/empty counts with one ``segment_sum``.

@@ -33,7 +33,7 @@ the per-scan reply is an immediate ack {"ok", "accepted", "deferred", "id"}
 — no device round trip — and each pose streams back later as its async copy
 lands, as a separate line {"result": {"id", "pose", "map_to_odom",
 "score"}} pushed before a subsequent reply.  This carries the pipelined
-mapping speedup (one relay RTT per scan -> overlap-limited) to the live
+mapping speedup (one round trip per scan -> overlap-limited) to the live
 surface; the synchronous protocol stays the default for per-scan-answer
 clients.
 """
@@ -203,9 +203,8 @@ class ScanServer:
             if windowed and res.accepted and res.pose_future is not None:
                 # Windowed protocol: immediate ack; the pose streams back as
                 # a {"result": ...} line once its async device->host copy
-                # lands (round-2 VERDICT weak #7: the per-scan-reply
-                # protocol forced a full drain per scan, so the live
-                # surface ran at sync speed while replay did 2-3 ms/scan).
+                # lands (the per-scan-reply protocol forces a full drain
+                # per scan, so the live surface would run at sync speed).
                 return ({"ok": True, "accepted": True, "deferred": True,
                          "id": req.get("id")},
                         (req.get("id"), odom, res.pose_future,
@@ -307,12 +306,15 @@ def stream_bag(path: str, sock_path: str, realtime_hz: float = 0.0,
     async device copy lands, so the session runs at pipelined speed through
     the live surface (a final ``flush`` collects stragglers).  Returns the
     last reply with ``results``: {scan id -> result dict} (empty when not
-    windowed).  ``realtime_hz`` > 0 paces the stream.
+    windowed), ``scans_accepted`` (scans the server accepted) and
+    ``poses_delivered`` (accepted scans whose pose reached the client,
+    inline or as a result line).  ``realtime_hz`` > 0 paces the stream.
     """
     from ndt_2d_tpu.io.bag import load_bag
     bag = load_bag(path)
     last = {}
     results = {}
+    accepted = inline_poses = 0
     scan_times = []  # per-scan client-side request->reply latency
     with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
         s.connect(sock_path)
@@ -345,6 +347,9 @@ def stream_bag(path: str, sock_path: str, realtime_hz: float = 0.0,
             f.flush()
             last = read_reply()
             scan_times.append(time.perf_counter() - t_send)
+            if last.get("accepted"):
+                accepted += 1
+                inline_poses += last.get("pose") is not None
             if realtime_hz > 0:
                 time.sleep(1.0 / realtime_hz)
         if windowed:
@@ -352,5 +357,7 @@ def stream_bag(path: str, sock_path: str, realtime_hz: float = 0.0,
             f.flush()
             last = read_reply()
     last["results"] = results
+    last["scans_accepted"] = accepted
+    last["poses_delivered"] = inline_poses + len(results)
     last["scan_times_s"] = scan_times
     return last

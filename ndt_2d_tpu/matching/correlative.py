@@ -15,7 +15,7 @@ style of Olson's correlative scan matching (and Karto's grid search):
   drop-in compatible with the mapper's gates and constraint construction.
 
 Being a plain gather+reduce over a [H, W] field, it shares the NDT matcher's
-TPU execution shape; the blur is two tiny 1-D convolutions.
+execution shape; the blur is two tiny 1-D convolutions.
 
 Select with ``scan_matcher_type="correlative"`` (MapperConfig) — the same
 mechanism as the reference's ``scan_matcher_type`` ROS parameter
@@ -63,8 +63,11 @@ def build_field(config: ScanMatcherConfig, poses, points, point_mask,
     x = jnp.arange(-r, r + 1, dtype=points.dtype)
     k = jnp.exp(-0.5 * x * x)
     k = k / jnp.sum(k)
-    f = jax.vmap(lambda row: jnp.convolve(row, k, mode="same"))(field)
-    f = jax.vmap(lambda col: jnp.convolve(col, k, mode="same"),
+    # Full f32: a default-precision GPU convolution may run in TF32.
+    hi = jax.lax.Precision.HIGHEST
+    f = jax.vmap(lambda row: jnp.convolve(row, k, mode="same",
+                                          precision=hi))(field)
+    f = jax.vmap(lambda col: jnp.convolve(col, k, mode="same", precision=hi),
                  in_axes=1, out_axes=1)(f)
     # Normalize so a beam landing exactly on a well-observed surface scores
     # ~1 (comparable to the NDT Gaussian peak).

@@ -4,7 +4,7 @@ The reference's matcher is purely an exhaustive lattice search
 (src/scan_matcher_ndt.cpp:103-143), so its accuracy is quantized to the
 lattice resolution (0.005 m / 0.0025 rad by default).  Classic NDT (Biber &
 Strasser 2003) instead ascends the smooth score surface with Newton's method;
-here that is implemented TPU-natively as a fixed-iteration ``lax.scan`` whose
+here that is implemented as a fixed-iteration ``lax.scan`` whose
 body is one batched gradient/Hessian accumulation over all beams — a few
 microseconds per iteration on-chip, giving *sub-lattice* registration when
 chained after the exhaustive search (coarse global alignment from the
@@ -146,7 +146,7 @@ def refine_pose(config: ScanMatcherConfig, grid: ndt_grid.NDTGrid,
         # score surface is locally non-convex or empty (all scores 0).
         lam = 1e-3 * (jnp.trace(hess) / 3.0) + 1e-6
         hess = hess + jnp.maximum(lam, 1e-6) * jnp.eye(3, dtype=hess.dtype)
-        # (matmul precision forced: TPU's bf16 dot default is too coarse
+        # (matmul precision forced: a TF32 product on a GPU is too coarse
         # for a sub-lattice polish step)
         with jax.default_matmul_precision("highest"):
             step = -jnp.linalg.solve(hess, grad)

@@ -1,4 +1,4 @@
-"""TPU-native NDT grid: batched Gaussian cell statistics over a dense grid.
+"""NDT grid: batched Gaussian cell statistics over a dense grid.
 
 The reference builds the NDT one point at a time (``Cell::addPoint``,
 src/ndt_model.cpp:50-63) and then finalizes each cell (``Cell::compute``,
@@ -9,7 +9,7 @@ src/ndt_model.cpp:65-103).  Here the whole grid is built in one shot:
 * per-cell covariance, eigenvalue flooring, and information matrices are
   computed for *all* cells as one batched closed-form 2x2 operation (no
   eigensolver: symmetric 2x2 eigenvalues are ``m +- sqrt(m^2 - det)``),
-* scoring is a batched gather + quadratic form + exp on the VPU.
+* scoring is a batched gather + quadratic form + exp.
 
 Numerical semantics match the reference:
 * incremental mean/correlation telescopes to ``sum/n`` exactly,

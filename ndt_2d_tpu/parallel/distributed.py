@@ -6,8 +6,8 @@ the ``jax.distributed`` multi-controller runtime: every process runs the
 same host program, owns a shard of the global device mesh, and the sharded
 kernels in ``parallel/`` (angle-sharded match, constraint-sharded LM/PCG,
 descriptor all-to-all, ray-sharded occupancy) communicate with XLA
-collectives — psum/all_gather ride ICI *within* a process's devices and DCN
-*across* processes, with no application-level networking at all.
+collectives — psum/all_gather ride NVLink *within* a host and the network
+*across* hosts, with no application-level networking at all.
 
 Process model
 -------------
@@ -26,7 +26,13 @@ Process model
   readable directly on every process) or mesh-sharded (``P(axis)`` — each
   process holds a slice); :func:`fetch` handles both.
 
-Simulation recipe (no real multi-host TPU needed): N processes ×
+Device placement: on a GPU host each process takes one card, so four
+processes on a four-card host do not each claim all four (process ``k``
+uses local card ``k``; one host, one process per card).  On GPUs the
+processes also set two XLA flags (see :func:`initialize`), without which
+four processes on four H100s stalled.
+
+Simulation recipe (no accelerator needed): N processes ×
 ``--xla_force_host_platform_device_count=K`` CPU devices each gives an
 N*K-device global mesh with real process boundaries — the fake backend
 SURVEY.md §4 prescribes; ``tests/test_distributed.py`` runs it in CI.
@@ -42,6 +48,8 @@ import numpy as np
 ENV_COORD = "NDT2D_DIST_COORD"
 ENV_NPROC = "NDT2D_DIST_NPROC"
 ENV_PID = "NDT2D_DIST_PID"
+GPU_FLAGS = ("--xla_gpu_shard_autotuning=false",
+             "--xla_gpu_deterministic_ops=true")
 
 
 def initialize(coordinator_address: Optional[str] = None,
@@ -53,8 +61,24 @@ def initialize(coordinator_address: Optional[str] = None,
     variables (how ``cli --distributed`` and the test harness pass them).
     Process 0 hosts the coordination service; all processes block here
     until everyone has joined.  Call before any device computation.
+
+    Unless the configured platforms are CPU only, process ``k`` is given
+    local device ``k`` alone (``local_device_ids``): several processes on
+    one GPU host then split its cards instead of all opening every card.
+    Those processes also get two XLA flags, each unless ``XLA_FLAGS``
+    already sets it:
+
+    * ``--xla_gpu_shard_autotuning=false``: with autotuning shared out
+      between the processes, compiling a program that spans them and
+      holds a matrix product never finished;
+    * ``--xla_gpu_deterministic_ops=true``: every process computes the
+      replicated values itself and reads its own copy, and a float
+      scatter-add sums in another order on each card, so the processes'
+      gate decisions, and then their collectives, drifted apart.
     """
     import jax
+
+    from ndt_2d_tpu.utils.jax_cache import cpu_only
     coordinator_address = coordinator_address or os.environ.get(ENV_COORD)
     if num_processes is None:
         num_processes = int(os.environ.get(ENV_NPROC, "0")) or None
@@ -65,9 +89,19 @@ def initialize(coordinator_address: Optional[str] = None,
         raise ValueError(
             "distributed.initialize needs a coordinator address and process "
             f"count (set {ENV_COORD}/{ENV_NPROC}/{ENV_PID} or pass args)")
+    gpu = not cpu_only(jax.config.jax_platforms)
+    if gpu:
+        # Read when the backend starts, which is after this call.
+        flags = os.environ.get("XLA_FLAGS", "")
+        for flag in GPU_FLAGS:
+            if flag.split("=")[0] not in flags:
+                flags = f"{flags} {flag}".strip()
+        os.environ["XLA_FLAGS"] = flags
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=[process_id]
+                               if gpu and process_id is not None else None)
 
 
 def is_multiprocess(mesh=None) -> bool:
@@ -86,12 +120,12 @@ def fetch(tree: Any) -> Any:
     Fully-addressable leaves (single-process arrays, replicated outputs)
     use a plain ``device_get``.  Multi-process leaves that are FULLY
     REPLICATED read the process-local copy directly (every process already
-    holds the whole value — no DCN traffic; this is what makes threading
-    replicated jit-output state across pipelined steps cheap); mesh-sharded
-    leaves are materialized with ``process_allgather`` (one all-gather over
-    DCN).  Non-array leaves pass through.  This is the one fetch entry
-    point the mapper/runtime use so single- and multi-process modes share
-    call sites.
+    holds the whole value — no cross-process traffic; this is what makes
+    threading replicated jit-output state across pipelined steps cheap);
+    mesh-sharded leaves are materialized with ``process_allgather`` (one
+    all-gather across processes).  Non-array leaves pass through.  This is
+    the one fetch entry point the mapper/runtime use so single- and
+    multi-process modes share call sites.
     """
     import jax
 
@@ -108,7 +142,8 @@ def fetch(tree: Any) -> Any:
 
 
 def barrier(name: str = "ndt2d") -> None:
-    """Block until every process reaches this point (DCN round-trip)."""
+    """Block until every process reaches this point (one cross-process
+    round trip)."""
     import jax
     if jax.process_count() > 1:
         from jax.experimental import multihost_utils

@@ -3,15 +3,15 @@
 The reference finds loop-closure candidates by a radius search over scan
 barycenters (Graph::findNearest, src/graph.cpp:167-189, rebuilt per query),
 which assumes odometry drift is smaller than the search radius.  At district
-scale — and across hosts — the TPU-native replacement is appearance-based:
+scale — and across hosts — the replacement here is appearance-based:
 
 * every keyframe gets a compact rotation-invariant **descriptor** (a
   normalized radial range histogram of its points, computed batched on
   device),
 * descriptors are L2-normalized so candidate search is a **cosine-similarity
-  matmul** — the MXU does all-pairs correlation,
+  matmul** — one matrix product does all-pairs correlation,
 * across a device mesh the keyframe set is sharded over the ``batch`` axis;
-  each device ``all_gather``s the descriptor table (rides ICI), correlates
+  each device ``all_gather``s the descriptor table, correlates
   its query shard against ALL keyframes in one matmul, and ``top_k``s
   locally — the all-to-all batched correlation named by the project
   north-star (BASELINE.json).
@@ -34,6 +34,14 @@ from jax.sharding import PartitionSpec as P
 from ndt_2d_tpu.parallel.mesh import BATCH_AXIS
 
 
+def _dot(a, b):
+    """Full-f32 product.  Descriptor cosines are compared against similarity
+    thresholds (``descriptor_min_similarity``), and a default-precision GPU
+    product may run in TF32 (about three decimal digits), which moves
+    cosines across the cutoff."""
+    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
+
+
 @functools.partial(jax.jit, static_argnames=("n_bins", "n_sectors",
                                              "n_rings"))
 def descriptors(points, point_mask, range_max, n_bins: int = 32,
@@ -49,7 +57,7 @@ def descriptors(points, point_mask, range_max, n_bins: int = 32,
       robot circularly shifts the profile, which only changes DFT phases —
       the magnitudes are exactly shift-invariant and capture *where the
       walls are*, not just how far.  The DFT is two small matmuls
-      ([S, A] @ [A, A/2] cos/sin tables) — MXU work, no FFT needed.
+      ([S, A] @ [A, A/2] cos/sin tables), no FFT needed.
     * **per-ring angular occupancy spectra** (Scan-Context-like radial
       decomposition): points binned into ``n_rings`` range bands x
       ``n_sectors`` sectors; each ring's angular occupancy profile gets the
@@ -98,8 +106,8 @@ def descriptors(points, point_mask, range_max, n_bins: int = 32,
     k = jnp.arange(1, n_sectors // 2 + 1, dtype=dtype)          # [F]
     a = jnp.arange(n_sectors, dtype=dtype)
     w = 2.0 * jnp.pi * a[:, None] * k[None, :] / n_sectors      # [A, F]
-    spec = jnp.sqrt((prof @ jnp.cos(w)) ** 2
-                    + (prof @ jnp.sin(w)) ** 2)                 # [S, F]
+    spec = jnp.sqrt(_dot(prof, jnp.cos(w)) ** 2
+                    + _dot(prof, jnp.sin(w)) ** 2)              # [S, F]
 
     # --- per-ring angular occupancy spectra ---
     ring = jnp.clip((r / range_max * n_rings).astype(jnp.int32),
@@ -109,8 +117,8 @@ def descriptors(points, point_mask, range_max, n_bins: int = 32,
     ring_cnt = (ring_cnt
                 / jnp.maximum(jnp.sum(msk, axis=1, keepdims=True), 1.0))
     ring_prof = ring_cnt.reshape(S, n_rings, n_sectors)         # [S, R, A]
-    ring_spec = jnp.sqrt((ring_prof @ jnp.cos(w)) ** 2
-                         + (ring_prof @ jnp.sin(w)) ** 2)       # [S, R, F]
+    ring_spec = jnp.sqrt(_dot(ring_prof, jnp.cos(w)) ** 2
+                         + _dot(ring_prof, jnp.sin(w)) ** 2)    # [S, R, F]
     ring_spec = ring_spec.reshape(S, -1)
 
     # --- range histogram (mean-centered: the histogram always sums to 1,
@@ -127,6 +135,13 @@ def descriptors(points, point_mask, range_max, n_bins: int = 32,
     return jnp.where(has_points, d / jnp.maximum(norm, 1e-12), 0.0)
 
 
+@jax.jit
+def cross_similarity(desc_a, desc_b):
+    """[Na, Nb] cosine similarities between two descriptor tables (map
+    merging's cross-session candidate search)."""
+    return _dot(desc_a, desc_b.T)
+
+
 @functools.partial(jax.jit, static_argnames=("k", "rolling_exclude"))
 def search_dense(desc, valid, query_idx, k: int = 8,
                  rolling_exclude: int = 10):
@@ -141,7 +156,7 @@ def search_dense(desc, valid, query_idx, k: int = 8,
 
     Returns (indices [k], scores [k]); empty slots have score -inf.
     """
-    sims = desc @ desc[query_idx]                               # [N] cosine
+    sims = _dot(desc, desc[query_idx])                          # [N] cosine
     n = desc.shape[0]
     eligible = valid & (jnp.arange(n) <= query_idx - rolling_exclude)
     sims = jnp.where(eligible, sims, -jnp.inf)
@@ -155,15 +170,11 @@ def search_all_pairs(desc, valid, k: int = 8, rolling_exclude: int = 10):
     ONE [N, B] @ [B, N] matmul + row-wise top_k.
 
     A loop-closure pass used to run search_dense per pending query — one
-    dispatch + one synchronous fetch each, which dominated the
-    descriptor-mode pass wall through a high-latency link (measured
-    ~273 ms/pass on the config-6 benchmark).  Descriptors depend only on
+    dispatch + one synchronous fetch each.  Descriptors depend only on
     scan points, which acceptances never change, so precomputing the whole
     table per pass is decision-identical to the per-query search (the same
-    argument as the sharded all-pairs path).  f32-forced contraction so
-    the scores match search_dense's matvec bitwise-closely on TPU (bf16
-    default matmul would shift cosines by ~1e-2 across the similarity
-    threshold).  Returns (indices [N, k], scores [N, k]).
+    argument as the sharded all-pairs path).  Returns (indices [N, k],
+    scores [N, k]).
     """
     n = desc.shape[0]
     sims = jnp.einsum("ib,jb->ij", desc, desc,
@@ -185,7 +196,7 @@ def search_all_pairs_multichip(mesh, desc, valid, k: int = 8,
     ``desc`` [N, B] is passed sharded over ``axis`` (N must divide the shard
     count; pad with ``valid=False`` rows).  Each device all_gathers the
     descriptor table, correlates its local query shard against the full set
-    in one matmul ([N/n_dev, B] @ [B, N] on the MXU), masks the rolling
+    in one matmul ([N/n_dev, B] @ [B, N]), masks the rolling
     window per query, and top_k's locally.  Returns (indices [N, k],
     scores [N, k]) for every keyframe as query.
     """
@@ -201,10 +212,10 @@ def search_all_pairs_multichip(mesh, desc, valid, k: int = 8,
     def _search(d_local, v_local):
         idx_dev = jax.lax.axis_index(axis)
         ns = d_local.shape[0]
-        # Full table on every device: one all_gather over ICI.
+        # Full table on every device: one all_gather.
         d_all = jax.lax.all_gather(d_local, axis).reshape(n, -1)   # [N, B]
         v_all = jax.lax.all_gather(v_local, axis).reshape(n)       # [N]
-        sims = d_local @ d_all.T                                   # [ns, N]
+        sims = _dot(d_local, d_all.T)                              # [ns, N]
         q_ids = idx_dev * ns + jnp.arange(ns)                      # [ns]
         eligible = (v_all[None, :] & v_local[:, None]
                     & (jnp.arange(n)[None, :]

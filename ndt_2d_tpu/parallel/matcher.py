@@ -53,7 +53,7 @@ def match_scan_multichip(config: ScanMatcherConfig, mesh,
 
     The grid/scan inputs are replicated; only the candidate lattice is
     partitioned, so the only collectives are three scalar-ish psums and one
-    small all-gather on the reduction — pure ICI traffic.
+    small all-gather on the reduction — device-to-device traffic only.
 
     jit with (config, mesh) static: without it the shard_map closure is
     rebuilt — re-traced and re-lowered — on EVERY call (measured ~10 s/scan

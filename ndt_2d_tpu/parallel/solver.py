@@ -166,9 +166,9 @@ def solve_multichip(config: SolverConfig, mesh, poses, begin, end, transform,
         final = jnp.where(ok, out_poses, poses0)
         return final, ok, cost, iters
 
-    # Force f32 contractions: TPU's default bf16 matmul precision was
-    # measured to diverge the LM/PCG solve on real hardware (see
-    # graph/solver.py::solve); the context applies while _solve traces.
+    # Force f32 contractions: a default-precision GPU product may run in
+    # TF32, too coarse for the LM/PCG solve (see graph/solver.py::solve);
+    # the context applies while _solve traces.
     with jax.default_matmul_precision("highest"):
         poses_out, ok, cost, iters = _solve(
             poses, begin, end, transform, information, constraint_mask,

@@ -1,47 +1,49 @@
 """Persistent XLA compilation cache.
 
-TPU compilation of the fused match step is expensive (minutes through a
-remote-compile service); the computation graphs are static per config, so a
-persistent on-disk cache makes every session after the first start in
-milliseconds.  The reference has no analog (C++ is ahead-of-time compiled);
-this is the TPU-native equivalent of shipping a compiled binary.
+A session compiles dozens of static-shape programs (the match step, the
+loop-closure row buckets, the solver buckets); on a GPU that is tens of
+seconds to minutes of set-up per process.  The graphs are static per
+config, so a persistent on-disk cache lets every session after the first
+start warm.  The reference has no analog (C++ is ahead-of-time compiled).
 """
 
 from __future__ import annotations
 
 import os
 
-_enabled = False
+# Fixed in-checkout default: the cache path is part of each entry's key, so
+# a directory that moves between runs never hits.
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__)))), ".jax_cache")
 
 
-def enable_compilation_cache(cache_dir: str | None = None) -> str:
-    """Point JAX at a persistent compilation cache directory (idempotent).
+def cpu_only(platforms: str | None) -> bool:
+    """True when a ``jax_platforms`` value names the CPU backend alone."""
+    names = [p.strip() for p in (platforms or "").split(",") if p.strip()]
+    return bool(names) and all(p == "cpu" for p in names)
 
-    Respects ``NDT2D_XLA_CACHE`` (set to ``0``/``off`` to disable, or to a
-    directory path to relocate).
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache (idempotent).
+
+    The directory is ``JAX_COMPILATION_CACHE_DIR`` when set (JAX reads it
+    itself; nothing else is set here), else :data:`DEFAULT_DIR`.
+    Decides from configuration alone and starts no device backend, so a
+    client command never opens the accelerator.  Returns the directory, or
+    ``""`` on a CPU-only configuration.
     """
-    global _enabled
-    env = os.environ.get("NDT2D_XLA_CACHE", "")
-    if env.lower() in ("0", "off", "none"):
-        return ""
-    if cache_dir is None:
-        cache_dir = env or os.path.join(
-            os.path.expanduser("~"), ".cache", "ndt_2d_tpu", "xla")
-    if _enabled:
-        return cache_dir
     import jax
-    try:
-        backend = jax.default_backend()
-    except Exception:  # backend init failed; don't make it worse
+    if cpu_only(jax.config.jax_platforms):
+        # CPU programs compile in well under a second each, and the XLA:CPU
+        # loader warns about host-feature mismatches on every reload.
         return ""
-    if backend == "cpu":
-        # CPU compiles are fast and the XLA:CPU AOT loader spams feature-
-        # mismatch warnings on reload; the cache only pays off on TPU.
-        return ""
+    cache_dir = jax.config.jax_compilation_cache_dir
+    if not cache_dir:
+        cache_dir = DEFAULT_DIR
+        jax.config.update("jax_compilation_cache_dir", cache_dir)
     os.makedirs(cache_dir, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
     # Cache every compilation regardless of compile time / size.
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
     jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    _enabled = True
     return cache_dir

@@ -3,15 +3,13 @@
 A loop-closure pass allocates and frees tens of MB of short-lived host
 buffers (padded candidate-window batches, fetched row results, solver
 temporaries); glibc's allocator retains the freed pages in its arenas, so a
-long session's RSS creeps even though no Python object leaks.  Measured on
-a 600-scan multi-lap office session (closure-dense: ~60 accepts/pass):
-~6 MB/pass steady RSS growth without trimming vs flat WITH a
-``malloc_trim(0)`` after each pass (620 vs 470 MB at the same keyframe
-count, still diverging) — the mechanism behind the 10k-scan benchmark's
-linear "~0.4 GB per 1000 scans" RSS curve (BASELINE.md round 5, long
-session; the reference's three-thread C++ process has the same allocator
-but frees its per-candidate buffers eagerly and allocates them far
-smaller, ndt_mapper.cpp:623-663).
+long session's RSS creeps even though no Python object leaks.  A
+``malloc_trim(0)`` after each pass returns those pages; without it a
+closure-dense multi-lap session's RSS grows with every pass
+(benchmarks/memory_attribution.py measures both arms).  The reference's
+three-thread C++ process has the same allocator but frees its
+per-candidate buffers eagerly and allocates them far smaller
+(ndt_mapper.cpp:623-663).
 
 ``trim_host_heap`` is a best-effort no-op anywhere glibc isn't available.
 """

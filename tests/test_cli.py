@@ -220,8 +220,8 @@ class TestCliMesh:
 
 
 class TestRecipePresets:
-    """--recipe applies the measured round-5 loop-closure recipes
-    (BASELINE.md round 5), with explicit flags overriding preset values."""
+    """--recipe applies the loop-closure recipe presets, with explicit flags
+    overriding preset values."""
 
     def _config(self, argv):
         # Parse through the real parser (no execution), then build config.

@@ -2,11 +2,10 @@
 loop_closure_reject_cache_margin / loop_closure_max_far_rows).
 
 The descriptor-mode wall is spent coarse-confirming repeated appearance
-aliases (BASELINE.md round 4: 24x the radius-mode wall); these pin the
-pruning levers that remove the redundant rows — the per-pass spatial dedup,
-the similarity-ranked cap, and the cross-pass negative cache — at the
-mechanism level (the measured effect lives in benchmarks/results.json
-config 6).
+aliases; these pin the pruning levers that remove the redundant rows —
+the per-pass spatial dedup, the similarity-ranked cap, and the cross-pass
+negative cache — at the mechanism level (benchmarks/run_benchmarks.py
+config 6 measures the effect).
 """
 
 import dataclasses

@@ -1,6 +1,6 @@
 """Transform-error loop-closure metrics (benchmarks/loop_closure_pr.py).
 
-VERDICT r4 #2: precision by 1 m-truth-set membership conflates "wrong edge"
+Precision by 1 m-truth-set membership conflates "wrong edge"
 with "edge between scans 1-3 m apart"; the transform-error criterion scores
 an accepted closure TRUE iff its constraint's relative transform matches the
 truth relative transform within (0.3 m, 0.05 rad).  These pin the

@@ -848,8 +848,8 @@ class TestSolveBeforeReanchor:
     Mechanism pinned: an accepted wrong FAR closure on the NEWEST scan
     rewrites its pose (reference semantics, ndt_mapper.cpp:651) and the
     dead-reckoning chain re-anchors on the rewrite — without the guard the
-    alias jump enters the pose chain (the measured 0.14 -> 5.6 m config-6
-    failure, BASELINE.md round 4); with ``loop_closure_solve_before_
+    alias jump enters the pose chain (a multi-metre config-6 ATE failure);
+    with ``loop_closure_solve_before_
     reanchor`` the robust solve arbitrates FIRST, the switched-off alias
     edge loses to the odometry chain, and the tracker stays anchored.
     """

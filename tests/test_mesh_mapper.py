@@ -38,7 +38,7 @@ def _slam_config(loop_search="radius"):
         grid_cells_x=160, grid_cells_y=160)
     # gate_scale 0.85 + redescending loss: the measured recipe that lets
     # candidate-region NDTs pass the 10-scan-window EWMA gate (see
-    # benchmarks/loop_closure_pr.py / BASELINE.md's recall table).
+    # benchmarks/loop_closure_pr.py).
     # region_size=3 keeps the descriptor scenario's closures robustly past
     # the gate (the 2-slot region leaves them within ~0.01 of it — a
     # lattice-phase coin flip this equivalence scenario must not ride on).
@@ -66,7 +66,7 @@ def _run(mapper, world, truth, odom, n_beams=600):
 
 
 class TestMeshFullSlam:
-    """The VERDICT round-2 'done' criterion: the office loop runs to
+    """The office loop runs to
     completion on the virtual mesh with >= 1 closure and ATE matching the
     single-device run."""
 
@@ -103,7 +103,7 @@ class TestMeshFullSlam:
         assert ate_d < 0.3
 
     def test_mesh_pipelining_matches_mesh_sync(self, mesh):
-        """VERDICT r3 weak #5: max_inflight now composes with a mesh (the
+        """max_inflight composes with a mesh (the
         device pose chain dispatches runtime.mapping_step_async_multichip).
         The drained graph must match the synchronous mesh run."""
         import dataclasses

@@ -42,7 +42,7 @@ class TestBaselineMatcher:
         m = registry.create("ndt", MCFG, 15.0)
         m.add_scans(poses, window_points, window_mask)
         res = m.match_scan(qpts, qmask, n, pose)
-        # Cross-implementation agreement (float64 C++ vs float32 TPU).
+        # Cross-implementation agreement (float64 C++ vs float32 JAX).
         assert score == pytest.approx(float(res.score), abs=2e-3)
         np.testing.assert_allclose(corr, np.asarray(res.correction),
                                    atol=1e-6)

@@ -143,6 +143,8 @@ class TestWindowedProtocol:
         # scan 0 takes the synchronous first-scan path (no future) and some
         # scans may be motion-gated; all others stream results.
         assert len(results) >= accepted - 2
+        assert last["scans_accepted"] == accepted
+        assert last["poses_delivered"] == accepted
         for r in results.values():
             assert len(r["pose"]) == 3 and len(r["map_to_odom"]) == 3
             assert np.isfinite(r["pose"]).all()
